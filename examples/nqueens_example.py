@@ -1,4 +1,4 @@
-"""N-Queens example — mirrors `/root/reference/examples/nqueens/src/main.rs`.
+"""N-Queens example — mirrors `examples/nqueens/src/main.rs`.
 
 Fastest config per the reference: TabuSearch with swap-only moves and
 unique-row initialization (`main.rs:33`).
@@ -9,6 +9,7 @@ import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
+from greyjack_tpu.compile_cache import enable_compile_cache
 from greyjack_tpu.models.nqueens import DomainBuilder, CotwinBuilder
 from greyjack_tpu.agents import TabuSearch
 from greyjack_tpu.agents.termination_strategies import ScoreLimit
@@ -30,6 +31,7 @@ class NQueensObserver(Observer):
 
 
 def main():
+    enable_compile_cache()
     domain_builder = DomainBuilder(256, 45)
     cotwin_builder = CotwinBuilder(use_incremental_score_calculation=True)
 

@@ -1,4 +1,4 @@
-"""TSP example — mirrors `/root/reference/examples/tsp/src/main.rs`.
+"""TSP example — mirrors `examples/tsp/src/main.rs`.
 
 Accepts a TSPLIB file path; without one, generates a synthetic instance
 (the reference repo ships no data files).
@@ -9,6 +9,7 @@ import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
+from greyjack_tpu.compile_cache import enable_compile_cache
 from greyjack_tpu.models.tsp import (
     DomainBuilder,
     CotwinBuilder,
@@ -20,6 +21,7 @@ from greyjack_tpu.solver import Solver, SolverLoggingLevels
 
 
 def main():
+    enable_compile_cache()
     if len(sys.argv) > 1:
         domain_builder = DomainBuilder(sys.argv[1])
     else:

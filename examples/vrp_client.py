@@ -1,4 +1,4 @@
-"""Standalone VRP service client — the TPU build's counterpart of the
+"""Standalone VRP service client — this build's counterpart of the
 reference's python client
 (`examples/vrp_service/python_client/scripts/solve_vrp_by_rust_service.py:1-70`):
 build a task payload from a domain (here a generated instance, or a `.vrp`

@@ -1,4 +1,4 @@
-"""VRP example — mirrors `/root/reference/examples/vrp/src/main.rs`
+"""VRP example — mirrors `examples/vrp/src/main.rs`
 (single-stage and multi-stage/replanning flavors).
 """
 
@@ -9,6 +9,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import sys
 
+from greyjack_tpu.compile_cache import enable_compile_cache
 from greyjack_tpu.models.vrp import (
     DomainBuilder,
     CotwinBuilder,
@@ -33,6 +34,7 @@ def make_agent(limit_ms=60_000, neighbours=128):
 
 
 def main():
+    enable_compile_cache()
     if len(sys.argv) > 1:
         domain_builder = DomainBuilder(sys.argv[1])
     else:

@@ -1,5 +1,5 @@
 """VRP solving service example — mirrors
-`/root/reference/examples/vrp_service/src/main.rs` + its python client, using
+`examples/vrp_service/src/main.rs` + its python client, using
 the HTTP broker (RabbitMQ adapter available via
 `greyjack_tpu.service.brokers.RabbitMqBroker` when pika + a broker exist).
 
@@ -16,6 +16,7 @@ import json
 import sys
 import urllib.request
 
+from greyjack_tpu.compile_cache import enable_compile_cache
 from greyjack_tpu.service import SolverService, HttpBroker
 from greyjack_tpu.service.solver_service import domain_to_task_json
 from greyjack_tpu.models.vrp import generate_instance
@@ -32,6 +33,7 @@ def agent_factory():
 
 
 def server():
+    enable_compile_cache()
     broker = HttpBroker(port=PORT)
     service = SolverService(broker, agent_factory, n_jobs=8,
                             logging_level=SolverLoggingLevels.FreshOnly)

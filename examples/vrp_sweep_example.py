@@ -1,11 +1,12 @@
-"""VRP with sweep neighbourhoods — the TPU-native flagship configuration.
+"""VRP with sweep neighbourhoods — the flagship configuration.
 
 Instead of `neighbours_count` random moves per step, the sweep mode scores
 EVERY candidate value for `sweep_targets` sampled stops (change /
 vehicle-reassignment / cross-route-swap families) from per-position route
-cumulants — ~1M exact candidate scores per step on one v5e chip at the
-n=1000 flagship geometry (DESIGN.md "round 4"). Accept semantics are the
-reference's accept-best-iff-<= (`tabu_search_base.rs:139-155`); the
+cumulants — about 2.0G candidate scores per second on one H100 at the
+n=1000 flagship geometry, 8 islands x 256 targets (PERF.md). Accept
+semantics are the reference's accept-best-iff-<=
+(`tabu_search_base.rs:139-155`); the
 random-move configuration of `vrp_example.py` remains available for
 scramble/insertion/inverse move mixes and rounded-score runs.
 
@@ -17,6 +18,7 @@ import sys
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
+from greyjack_tpu.compile_cache import enable_compile_cache
 from greyjack_tpu.models.vrp import (
     DomainBuilder,
     CotwinBuilder,
@@ -28,6 +30,7 @@ from greyjack_tpu.solver import Solver, SolverLoggingLevels
 
 
 def main():
+    enable_compile_cache()
     if len(sys.argv) > 1:
         domain_builder = DomainBuilder(sys.argv[1])
     else:

@@ -1,7 +1,7 @@
-"""greyjack_tpu — a TPU-native metaheuristic constraint-solver framework.
+"""greyjack_tpu — a metaheuristic constraint-solver framework on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of GreyJack
-Solver (Rust edition, see /root/reference): cotwin problem modeling,
+A from-scratch JAX/XLA re-design with the capabilities of GreyJack Solver
+(Rust edition, CameleoGrey/greyjack-solver-rust): cotwin problem modeling,
 multi-level lexicographic scores, a shared batched move library, five
 metaheuristics (GeneticAlgorithm, TabuSearch, LateAcceptance,
 SimulatedAnnealing, LSHADE), pluggable termination strategies, observers,

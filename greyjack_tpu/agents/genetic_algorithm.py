@@ -9,7 +9,7 @@ the rint'ed weight, i.e. whole-gene inheritance — `cross`,
 Replacement pits each candidate against a random p-worst native; better
 score wins (`build_updated_population`, `:198-213`).
 
-On TPU all pairs are generated/crossed/moved/scored as one batch.
+On the device all pairs are generated/crossed/moved/scored as one batch.
 """
 
 from __future__ import annotations

@@ -4,8 +4,8 @@ Reference: `greyjack/src/agents/tabu_search.rs:16-77` (builder) and
 `greyjack/src/agents/metaheuristic_bases/tabu_search_base.rs:25-199`
 (semantics): sample `neighbours_count` independent moves off the current
 best, accept the best neighbour iff <= current. The "tabu" aspect lives in
-the shared Mover's entity tabu. On TPU the whole neighborhood is one
-move+score batch.
+the shared Mover's entity tabu. Here the whole neighborhood is one
+move+score batch on the device.
 """
 
 from __future__ import annotations
@@ -80,6 +80,10 @@ class TabuSearch:
             ints_to_row = (base.make_rounded_ints_to_row_fn(
                 requester, score_precision)
                 if score_precision is not None and precision_ok else None)
+            # int-delta path (trace-time static): taken exactly where the
+            # model's integer rows are exact for this move set's width
+            has_ints = precision_ok and requester.supports_delta_ints(
+                cfg.delta_width)
 
             def init_state(key):
                 population = vm.sample_variables(key, 1)
@@ -108,12 +112,10 @@ class TabuSearch:
                 # (bit-identical to rounding a full rescore) — argmin stays
                 # on exact ints, which is valid because decimal rounding is
                 # monotone.
-                ints = None
-                if precision_ok:
+                state = dict(state)
+                if has_ints:
                     ints = requester.request_score_delta_ints(state["ctx"],
                                                               deltas)
-                state = dict(state)
-                if ints is not None:
                     best = lexico.lex_argmin(ints)
                     best_delta = moves.take_one(ints, best)
                     if ints_to_row is None:
@@ -179,12 +181,6 @@ class TabuSearch:
             def prestep(batched_state):
                 return {"_free": cfg.tabu_free(batched_state["tabu"])}
 
-            calc = requester.cotwin.score_calculator
-            has_ints = (precision_ok
-                        and getattr(calc, "delta_score_batch_ints_fn", None)
-                        is not None
-                        and getattr(calc, "delta_ctx_score_fn", None)
-                        is not None)
             return base.MetaheuristicKernel(
                 self, init_state, step, refresh, self_gating=True,
                 prestep=prestep if narrow else None,

@@ -1,17 +1,17 @@
 """Global dtype / size configuration for greyjack_tpu.
 
 The reference solver does all chromosome and score math in f64
-(`greyjack/src/agents/base/individual.rs:7-12`). On TPU, f64 is emulated but
-correct; score parity with the reference requires it, so f64 is the default
-for the score path. The move/sampling path also uses f64 so that discrete
-values (integers up to bounds) are represented exactly.
+(`greyjack/src/agents/base/individual.rs:7-12`). Score parity with the
+reference requires it, so f64 is the default for the score path.
+Chromosomes default to f32, which represents discrete values (integers up
+to 2^24) exactly.
 """
 
 import jax.numpy as jnp
 
 # dtype of chromosomes / move arithmetic. f32 by default: discrete variable
-# values are small integers (exact below 2^24) and f64 is software-emulated
-# on TPU (~10-50x slower elementwise). Score rows and distance totals are
+# values are small integers (exact below 2^24), and f32 halves the bytes
+# every move and population op moves. Score rows and distance totals are
 # always f64. Call `use_float64()` before building models for continuous
 # problems with huge ranges or when bit-level f64 chromosome arithmetic is
 # required (golden-parity tests feed f64 populations directly, which
@@ -28,9 +28,8 @@ def use_float32():
     global FLOAT_DTYPE
     FLOAT_DTYPE = jnp.float32
 # dtype of integer columns handed to constraint kernels. int32: every id /
-# count / time value in cotwin problems is far below 2^31, and i64 is
-# emulated (2x cost) on TPU. Reductions that can overflow i32 (penalty sums)
-# widen locally.
+# count / time value in cotwin problems is far below 2^31, and i32 halves
+# the bytes. Reductions that can overflow i32 (penalty sums) widen locally.
 INT_DTYPE = jnp.int32
 # dtype used for indices inside kernels
 INDEX_DTYPE = jnp.int32

@@ -2,7 +2,7 @@
 
 Reference: `greyjack/src/cotwin/cotwin.rs:12-57`. Planning entities and
 problem facts are grouped by name; a score calculator (plain or incremental)
-is attached by the user's cotwin builder. The TPU build compiles this
+is attached by the user's cotwin builder. This build compiles this
 container into dense arrays once (`ScoreRequester`), after which solving
 never touches Python objects.
 """

@@ -1,6 +1,6 @@
-"""N-Queens cotwin + TPU score kernels.
+"""N-Queens cotwin + device score kernels.
 
-Reference: `/root/reference/examples/nqueens/src/persistence/
+Reference: `examples/nqueens/src/persistence/
 cotwin_builder.rs:40-94` (one GJInteger row per queen, bounds 0..n-1) and
 `score/plain_score_calculator.rs:26-67` — the fused `all_different`
 constraint: per sample, (len - n_unique) over rows, descending (col+row)

@@ -1,6 +1,6 @@
 """N-Queens domain model + persistence.
 
-Reference: `/root/reference/examples/nqueens/src/domain/*.rs`,
+Reference: `examples/nqueens/src/domain/*.rs`,
 `persistence/domain_builder.rs` (seeded shuffle of row ids; solution
 round-trip parses `"queens: {i}-->row_id"` names).
 """

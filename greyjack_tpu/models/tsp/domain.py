@@ -1,8 +1,8 @@
 """TSP domain model + TSPLIB persistence.
 
-Reference: `/root/reference/examples/tsp/src/domain/*.rs`,
+Reference: `examples/tsp/src/domain/*.rs`,
 `persistence/domain_builder.rs:92-213`. Distances are Euclidean, truncated
-to 3 decimals per entry (`location.rs:38-50`). TPU-first difference: the
+to 3 decimals per entry (`location.rs:38-50`). Device-side difference: the
 O(L^2) distance matrix is computed on device in one batched op
 (`ops.distance.euclidean_matrix`) instead of host loops; it stays on device
 for the solver's gather kernels.

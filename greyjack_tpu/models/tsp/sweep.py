@@ -12,8 +12,8 @@ candidate's score delta is EXACT closed-form leg arithmetic.
     position's: [T, N]; the general 6-leg splice plus the standard
     adjacent-pair correction (the shared leg is replaced by its reverse).
 
-dm rows ride one-hot matmuls on the MXU (exact for milli values < 2^24,
-HIGHEST precision); no scalar gathers anywhere on the candidate axis. The
+dm rows ride one-hot matmuls (exact for milli values < 2^24 at HIGHEST
+precision, never TF32); no scalar gathers anywhere on the candidate axis. The
 winner materializes as a width-`cfg.kd` delta; its exact (d_hard, d_dist)
 key comes straight from the sweep tiles — every family delta is exact
 closed-form leg arithmetic, parity-pinned against full rescores

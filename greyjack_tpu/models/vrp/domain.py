@@ -1,6 +1,6 @@
 """VRP domain model + .vrp persistence + synthetic instances.
 
-Reference: `/root/reference/examples/vrp/src/domain/*.rs` and
+Reference: `examples/vrp/src/domain/*.rs` and
 `persistence/domain_builder.rs:18-120`. Multi-depot CVRP with optional time
 windows: the first `d` rows of the customer list are depots; vehicles are
 assigned round-robin over depots; vehicle work-day = depot time window.

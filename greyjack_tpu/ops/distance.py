@@ -2,10 +2,9 @@
 
 The reference builds full O(L^2) distance matrices on the host at domain
 parse time, rounding each entry to 3 decimals
-(`examples/tsp/src/persistence/domain_builder.rs:92-213`). TPU-first, the
-matrix is computed as one batched pairwise op on device — for L ~ 10k this
-is a 100M-entry computation that takes milliseconds on the MXU-adjacent VPU
-instead of seconds of host loops.
+(`examples/tsp/src/persistence/domain_builder.rs:92-213`). Here the matrix
+is computed as one batched pairwise op on device — for L ~ 10k a 100M-entry
+elementwise computation instead of seconds of host loops.
 """
 
 from functools import partial

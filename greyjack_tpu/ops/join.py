@@ -1,9 +1,9 @@
-"""Gather-free lookup/permutation kernels — the TPU-native join layer.
+"""Gather-free lookup/permutation kernels — the sort-merge join layer.
 
-TPUs have no hardware gather: XLA lowers `table[idx]` to ~10ns-per-element
-serial loads, which made fact lookups the dominant cost of whole-population
-scoring. These kernels replace gathers with sorts + scatters + log-depth
-scans, which the VPU executes at full width:
+These kernels replace gathers with sorts + scatters + log-depth scans, all
+full-width vector work. They were written for a device whose gathers were
+serial loads; on a GPU a gather is a plain memory read, and ROADMAP Design
+item 2 tests each against its gather form:
 
   * `sort_merge_lookup` — the BASELINE north star's "hash join" as a
     sort-merge join: concat(table keys, query keys) -> stable sort ->

@@ -38,8 +38,8 @@ def lex_min2(a, b):
 
 def lex_argmin(scores):
     """Index of the lexicographically smallest row. scores: [N, S] -> i32
-    (float or integer score rows — integer rows are the TS delta fast path,
-    where f64 reductions would be software-emulated on v5e).
+    (float or integer score rows — integer rows are the TS int-delta
+    path).
 
     Ties resolve to the lowest index (matches `Iterator::min_by` in the
     reference, `tabu_search_base.rs:166-171`). S masked min-reductions plus

@@ -1,13 +1,14 @@
-"""The batched move library — TPU redesign of the reference `Mover`.
+"""The batched move library — array redesign of the reference `Mover`.
 
 Reference (`greyjack/src/agents/metaheuristic_bases/mover.rs`): six move
 types chosen by cumulative probability thresholds, operating on a random
 semantic group, with per-group entity tabu and a Binomial change-count.
 Every metaheuristic shares this library.
 
-TPU-first formulation: every move is a *permutation-with-resampling* of the
-chromosome. TPUs have no hardware gather, so the permutation is built
-WITHOUT per-element indexed loads: selected positions are tiny [K]-sized
+Array formulation: every move is a *permutation-with-resampling* of the
+chromosome. The permutation is built WITHOUT per-element indexed loads
+(written for a device whose gathers were serial; ROADMAP Design item 2
+re-tests it against a gather on the GPU): selected positions are tiny [K]-sized
 lookups, subrange rotations/reversals come from `roll`/`flip` of the
 (dynamically sliced) group-member row, and the final application
 `y[i] = x[p[i]]` uses the double-sort identity (`join.apply_permutation`)
@@ -138,8 +139,8 @@ class MoverConfig:
         scatter); the narrow sampler then draws uniformly from the free set
         — exact tabu semantics (the bounded-rejection fallback could still
         pick tabu slots) and, decisively, no per-neighbour bool mask
-        gather, which profiled at ~2.5 ms/step at P=16k on v5e (the whole
-        rest of the sampler is noise-level).
+        gather (at P=16k that gather cost more than the whole rest of the
+        sampler).
 
         Accepts an island-batched state (ring [I, G, cap]) and returns
         [I, G, Lmax]/[I, G]: the batch flattens into the scatter's ROW
@@ -167,8 +168,8 @@ class MoverConfig:
             free &= ~selection.tabu_masks_all(tabu_state, tabu_sizes, lmax)
         cnt = jnp.sum(free, axis=1, dtype=jnp.int32)
         # cumsum-rank scatter compaction (free slots first, ascending); an
-        # argsort formulation compiled pathologically on TPU (sort network
-        # inside vmap x scan blew the bench compile past 900s)
+        # argsort formulation put a sort network inside vmap x scan, whose
+        # compile time was prohibitive at the bench geometry
         idx = jnp.cumsum(free, axis=1, dtype=jnp.int32) - 1
         g = free.shape[0]
         fl = jnp.zeros((g, lmax), jnp.int32).at[
@@ -321,7 +322,7 @@ def do_move_delta(key, candidate, vm, cfg: MoverConfig, tabu_masks):
     Returns (delta, info) with delta = {"positions": i32[KD],
     "values": float[KD], "valid": bool[KD]} — the changed variables and
     their new values (KD = `cfg.delta_width`, statically derived from the
-    enabled move set). This is the TPU counterpart of the reference's
+    enabled move set). This is the batched counterpart of the reference's
     incremental sampler, which returns per-neighbour (var_id, new_value)
     lists (`tabu_search_base.rs:107-137`, `mover.rs:145-421` incremental
     arms). Disabled move branches (probability 0) are pruned at trace time,
@@ -623,8 +624,8 @@ def dedupe_delta(delta):
 
 def apply_delta(base, delta):
     """Materialize one delta. iota-compare-select instead of a scatter:
-    selects over f[V] are pure vector ops, while one scatter op carries
-    a large fixed cost on XLA:TPU (DESIGN.md §5). Later delta rows win on
+    selects over f[V] are pure vector ops that XLA fuses with their
+    neighbours, where a scatter is an op of its own. Later delta rows win on
     position collisions, matching `.at[].set` semantics.
 
     Width-dispatched: narrow deltas (the random-move paths, KD <= 8) unroll

@@ -1,8 +1,9 @@
 """Hash/row-partitioned fact tables over a `facts` mesh axis.
 
 DESIGN.md §6: replicated fact tables stop working when the facts outgrow
-one chip's HBM — the dominant table is the [L, L] distance matrix (L ~ 63k
-customers fills a v5e's 16 GB). The multi-host layout is a 2-D mesh
+one device's memory — the dominant table is the [L, L] distance matrix
+(an i32 matrix for L ~ 140k customers fills an 80 GB card). The layout is
+a 2-D mesh
 `(islands, facts)`: populations stay data-parallel on `islands`; the
 distance matrix is row-sharded over `facts`, and the per-step dm lookups
 become an owner-computes exchange.

@@ -191,10 +191,10 @@ def _maxplus_scan(adds, floors):
     the result independent of the initial value).
 
     Hand-rolled Hillis–Steele doubling (log2(N) uniform full-width steps)
-    instead of `lax.associative_scan`: the recursive odd-shape slicing the
-    latter generates compiles pathologically slowly on TPU for N ~ 1000.
+    instead of `lax.associative_scan`, whose recursive odd-shape slicing
+    compiled very slowly for N ~ 1000 (ROADMAP Speed item 6 re-tests it).
 
-    Runs in i32 (i64 is emulated on TPU): the -2^30 "minus infinity" add is
+    Runs in i32 (half the bytes of i64): the -2^30 "minus infinity" add is
     re-clamped each round so repeated reset maps cannot underflow, and
     2*neg = INT32_MIN is still representable."""
     neg = jnp.asarray(-(1 << 30), adds.dtype)
@@ -231,8 +231,8 @@ def vrp_routes_packed(
     service], prefetched via `join.sort_merge_lookup`. All per-vehicle
     quantities live on the stop axis: boundary stops (is_first / is_last)
     carry their vehicle's depot legs and work-day bounds via masked [N]
-    gathers — no `.at[]` scatters anywhere (each XLA:TPU scatter carries a
-    large fixed cost; this function is the plain-path hot loop). Semantics
+    gathers — no `.at[]` scatters anywhere (this function is the plain-path
+    hot loop, and elementwise work fuses where scatters do not). Semantics
     identical to `vrp_routes_fast`.
 
     `dm_at` (optional): flat-index accessor replacing direct
@@ -248,9 +248,8 @@ def vrp_routes_packed(
     is_first = jnp.concatenate([jnp.array([True]), v[1:] != v[:-1]])
     is_last = jnp.concatenate([v[:-1] != v[1:], jnp.array([True])])
 
-    # scatter-free formulation (round-5 profile: the 7 per-vehicle `.at[]`
-    # scatters here were most of the 35 us/candidate plain-walk cost —
-    # XLA:TPU scatters carry a large fixed cost each, DESIGN.md §5). All
+    # scatter-free formulation (the 7 per-vehicle `.at[]` scatters this
+    # replaced were most of the plain-walk cost under vmap). All
     # per-vehicle quantities are re-expressed on the stop axis: the
     # boundary stop itself carries its vehicle's depot leg / work-day
     # bound via masked [N] gathers; integer sums keep bit-identical totals
@@ -318,7 +317,7 @@ def vrp_routes_fast(
     tw_end=None,
     service_time=None,
 ):
-    """TPU-fast equivalent of `vrp_routes`: no sequential loop.
+    """Parallel equivalent of `vrp_routes`: no sequential loop.
 
     Distance: exact integer-milli sums (order-free; equal to the reference's
     sequential f64 fold after the standard `score_precision` truncating

@@ -1,4 +1,4 @@
-"""Segment/uniqueness kernels — the TPU replacements for the reference's
+"""Segment/uniqueness kernels — the array replacements for the reference's
 Polars group_by/agg idioms (SURVEY.md §7.1(2)).
 
 All kernels are fixed-shape, vmap-friendly and avoid hash tables: group keys
@@ -18,11 +18,10 @@ def count_minus_n_unique(values, num_buckets):
     `plain_score_calculator.rs:44-48`, tsp `plain_score_calculator.rs:46`).
     values: int[N] -> f64 scalar.
 
-    Sort-based distinct count, not a bincount: the bincount scatter was 72%
-    of the whole VRP plain rescore under vmap (131 of 182 ms at [1024, 1000]
-    on v5e — each XLA:TPU scatter carries a large fixed cost, DESIGN.md §5);
-    one i32 sort + adjacent-compare is ~40x cheaper and needs no bucket
-    bound. `num_buckets` is kept for API compatibility (unused).
+    Sort-based distinct count, not a bincount: the bincount scatter was most
+    of the VRP plain rescore under vmap, and one i32 sort + adjacent-compare
+    needs no bucket bound. `num_buckets` is kept for API compatibility
+    (unused).
     """
     if values.shape[0] == 0:
         return jnp.zeros((), jnp.float64)

@@ -3,7 +3,7 @@
 The reference's `Mover::select_non_tabu_ids` (`greyjack/src/agents/
 metaheuristic_bases/mover.rs:75-96`) rejection-samples ids not in a
 per-semantic-group FIFO set, mutating the FIFO as it goes. Sequential
-rejection + mutation does not vectorize; the TPU equivalent is Gumbel top-k:
+rejection + mutation does not vectorize; the batched equivalent is Gumbel top-k:
 every valid position gets an i.i.d. Gumbel score, tabu positions get a large
 penalty, and the top-k positions are the selection — distinct by
 construction, tabu-avoiding unless the group is nearly exhausted (the

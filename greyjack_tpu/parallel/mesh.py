@@ -1,9 +1,9 @@
 """Mesh construction helpers for the island axis.
 
 The reference scales by spawning `n_jobs` OS threads over a crossbeam ring
-(`solver/solver.rs:85-143`). The TPU equivalent is a 1-D device mesh whose
-`islands` axis carries island shards; migration rides `lax.ppermute` over
-ICI and the global best is a lexicographic all-reduce (SURVEY.md §2.3).
+(`solver/solver.rs:85-143`). The device equivalent is a 1-D mesh whose
+`islands` axis carries island shards; migration rides `lax.ppermute` between
+devices and the global best is a lexicographic all-reduce (SURVEY.md §2.3).
 """
 
 import jax
@@ -22,12 +22,13 @@ def make_island_mesh(devices=None):
 def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None):
     """Multi-host bring-up: `jax.distributed.initialize` + a global island
-    mesh over every chip in the slice/pod.
+    mesh over every device of every process.
 
     Replaces the reference's single-process rayon fan-out
     (`solver/solver.rs:94-143`) for multi-host runs: migration then rides
-    ICI within a slice and DCN across slices through the same `ppermute`
-    ring (the mesh orders devices so neighboring islands are ICI-adjacent).
+    the same `ppermute` ring within a host and across hosts. Pass
+    `coordinator_address`, `num_processes` and `process_id` where nothing
+    in the environment describes the cluster.
     """
     kwargs = {}
     if coordinator_address is not None:

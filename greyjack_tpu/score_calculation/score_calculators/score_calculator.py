@@ -6,7 +6,7 @@ plain_score_calculator.rs:8-99` — named constraint closures over
 plus prescoring functions (shared precomputation) and per-constraint
 weights applied as a sequential weighted sum.
 
-TPU redesign: a constraint is a pure JAX function over ONE candidate's typed
+Array redesign: a constraint is a pure JAX function over ONE candidate's typed
 entity arrays; the framework vmaps the composed calculator over the whole
 population, so every Polars group_by/join in the reference becomes a batched
 gather/segment kernel here (see `greyjack_tpu.ops`). Dataframes never exist
@@ -91,7 +91,7 @@ class IncrementalScoreCalculator(PlainScoreCalculator):
     (`incremental_score_calculator.rs:8-104`) re-mapped to device arrays.
 
     The reference hands each constraint `delta_dfs` (one row per changed
-    variable per sample, `oop_score_requester.rs:384-441`). The TPU
+    variable per sample, `oop_score_requester.rs:384-441`). Here the
     formulation is a kernel pair registered by the model:
 
         build_ctx(planning, facts, utils) -> ctx
@@ -123,7 +123,8 @@ class IncrementalScoreCalculator(PlainScoreCalculator):
         self.delta_score_fn = None
         self.delta_update_fn = None
         self.delta_ctx_score_fn = None
-        self.delta_score_batch_ints_fn = None
+        self.delta_score_ints_fn = None
+        self.delta_ints_eligible_fn = None
         self.delta_ctx_ints_fn = None
         self.score_int_scales = None
         self.sweep_module = None
@@ -137,7 +138,7 @@ class IncrementalScoreCalculator(PlainScoreCalculator):
         when migration swaps the base candidate.
         `ctx_score(ctx, utils) -> f64[S]` (optional): the ctx's own base
         score from its exact integer sums — required for the int-delta
-        local-search fast path (see set_delta_batch_kernel).
+        local-search fast path (see set_delta_ints_kernel).
         `ctx_ints(ctx, utils) -> i64[S]` (optional): the ctx's exact INTEGER
         score totals, with `int_scales` (length-S divisors) mapping them to
         the f64 score space (`f64_row = ints / scales`). Registering the
@@ -155,19 +156,18 @@ class IncrementalScoreCalculator(PlainScoreCalculator):
         if int_scales is not None:
             self.score_int_scales = [float(s) for s in int_scales]
 
-    def set_delta_batch_kernel(self, score_delta_batch,
-                               score_delta_batch_ints=None):
-        """Optionally register a whole-neighbourhood scorer
-        `(ctx, deltas[P, K], utils) -> f64[P, S] | None` (e.g. a fused
-        Pallas kernel). Returning None means "statically ineligible for
-        this shape/instance" — the requester falls back to vmapping the
-        per-delta kernel.
-        `score_delta_batch_ints` (optional): same shape contract but
-        returning i32[P, S] DELTA rows lexicographically order-equivalent
-        to the f64 rows (candidate accepted iff <= 0) — lets local search
-        keep f64 (software-emulated on v5e) off the per-step hot path."""
-        self.delta_score_batch_fn = score_delta_batch
-        self.delta_score_batch_ints_fn = score_delta_batch_ints
+    def set_delta_ints_kernel(self, score_delta_ints, eligible):
+        """Optionally register an integer delta scorer
+        `(ctx, delta, utils) -> i32[S]` returning DELTA rows
+        lexicographically order-equivalent to `score_delta`'s f64 rows
+        (a candidate is accepted iff its row is <= 0), with INT32_MAX rows
+        for neighbours `score_delta` scores as the stub. Local search then
+        ranks and accepts on integers and materializes an f64 row only for
+        the winner. `eligible(utils, delta_width) -> bool` is the static
+        condition under which the rows are exact; agents take the integer
+        path only where it holds."""
+        self.delta_score_ints_fn = score_delta_ints
+        self.delta_ints_eligible_fn = eligible
 
     def set_sweep_module(self, module):
         """Optionally register a sweep-neighbourhood module (dense

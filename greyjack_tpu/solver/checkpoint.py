@@ -16,7 +16,7 @@ strategies are rebased on load: their elapsed milliseconds are preserved,
 downtime between kill and resume does not count against the limit.
 
 Format: a single pickle file written atomically (tmp + rename), holding
-numpy-ified pytrees — no live JAX objects, so a checkpoint written on TPU
+numpy-ified pytrees — no live JAX objects, so a checkpoint written on a GPU
 loads on CPU and vice versa (shapes/dtypes must match, i.e. same solver
 config; `Solver.solve(resume_from=...)` rebuilds the program from the same
 builders and swaps the state in).

@@ -4,7 +4,7 @@
 // The reference publishes no throughput numbers (README.md:49), so this
 // binary measures a faithful C++ re-implementation of the hot loop the
 // target refers to: the fused incremental VRP rescore
-// (`/root/reference/examples/vrp/src/score/incremental_score_calculator.rs:55-139`)
+// (`examples/vrp/src/score/incremental_score_calculator.rs:55-139`)
 // driven the way TabuSearch drives it (`tabu_search_base.rs:107-188`):
 // per scored move, the reference
 //   * clones the full candidate vehicle/customer id vectors,

@@ -1,6 +1,6 @@
 // gjio — native IO for greyjack_tpu.
 //
-// The reference solver's host runtime is Rust end-to-end; the TPU build keeps
+// The reference solver's host runtime is Rust end-to-end; this build keeps
 // the compute path in XLA and implements the host-bound pieces natively.
 // This library provides the data-loader: a fast tokenizer for TSPLIB (.tsp)
 // and CVRPLIB-style (.vrp) instance files (the reference's

@@ -1,8 +1,8 @@
 // ref_tabu — a faithful C++ re-implementation of the reference solver's
-// TabuSearch agent loop, for head-to-head QUALITY races against the TPU
+// TabuSearch agent loop, for head-to-head QUALITY races against the JAX
 // solver on identical instances (VERDICT r3 item 3).
 //
-// Semantics mirrored from /root/reference (greyjack-solver-rust):
+// Semantics mirrored from the reference (greyjack-solver-rust):
 //   * agent loop: population 1, sample `neighbours_count` independent
 //     moves off the current best, accept the best neighbour iff <= current
 //     (`agents/metaheuristic_bases/tabu_search_base.rs:80-199`);
@@ -28,7 +28,7 @@
 //
 // Scores are exact integers — hard = 1000*dups + capacity overflow,
 // medium = lateness, soft = distance in milli units — the same integer
-// semantics as the TPU solver, so trajectories are directly comparable.
+// semantics as the JAX solver, so trajectories are directly comparable.
 //
 // Input: flat binary instance written by scripts/quality_race.py:
 //   i32 header[8] = {0x47524a54, n_stops, n_depots, k, L, tw, 0, 0}

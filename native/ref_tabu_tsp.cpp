@@ -20,7 +20,7 @@
 //   i32 header[8] = {0x47525453, n_stops, 0, 0, L, 0, 0, 0}
 //   then i32: dm_milli[L*L], init_tour[n_stops]
 // Output: JSON trajectory lines {"t", "hard", "late": 0, "dist_milli"}
-// then a final record — the same score space as the TPU side.
+// then a final record — the same score space as the JAX side.
 //
 // Build: g++ -O3 -march=native -std=c++17 -pthread native/ref_tabu_tsp.cpp
 //        -o native/ref_tabu_tsp

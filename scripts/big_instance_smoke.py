@@ -5,7 +5,7 @@ at those sizes on one chip for a fixed budget and records throughput +
 trajectory feasibility — evidence the kernels' static bounds (route_cap,
 i32 accumulators, f32-exact one-hot matmuls) hold at production scale.
 
-Usage: python scripts/big_instance_smoke.py --seconds 60 --out BIGINSTANCE_r05.json
+Usage: python scripts/big_instance_smoke.py --seconds 60 --out chiprun_out/big_instance.json
 """
 
 import argparse
@@ -120,14 +120,14 @@ def run_tsp(seconds, islands=8, targets=64):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seconds", type=float, default=60.0)
-    ap.add_argument("--out", default="BIGINSTANCE_r05.json")
+    ap.add_argument("--out", default="chiprun_out/big_instance.json")
     args = ap.parse_args()
 
     import jax
 
-    jax.config.update("jax_compilation_cache_dir", str(ROOT / ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from greyjack_tpu.compile_cache import enable_compile_cache
+
+    enable_compile_cache(min_compile_secs=1.0)
 
     out = {"platform": jax.devices()[0].platform}
     out["vrp_n2750"] = run_vrp(args.seconds)

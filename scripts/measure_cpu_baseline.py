@@ -6,7 +6,7 @@ incremental VRP rescore driven TabuSearch-style — see the .cpp header for
 the per-move work list and the generosity caveats), runs it on all local
 cores, and extrapolates to the 64-thread target of BASELINE.json using the
 reference's own "nearly linear horizontal scaling" claim
-(`/root/reference/README.md:22`).
+(`README.md:22`).
 
 Run: python scripts/measure_cpu_baseline.py [seconds]
 """

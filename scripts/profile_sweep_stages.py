@@ -1,9 +1,8 @@
 """Dispatch-free stage attribution for the sweep-neighbourhood step.
 
-Same scan-amortized harness as profile_delta_stages.py: every stage runs K
-iterations inside one jitted `lax.scan` whose RNG key is folded with the
-previous iteration's output, so nothing hoists and the per-iteration time
-is the real device cost.
+Scan-amortized harness: every stage runs K iterations inside one jitted
+`lax.scan` whose RNG key is folded with the previous iteration's output, so
+nothing hoists and the per-iteration time is the real device cost.
 
 Stages:
   nil      — empty body (scan-harness floor; subtract from everything)
@@ -13,7 +12,9 @@ Stages:
   step     — full TabuSearch sweep step, vmapped over islands
 
 Run: python scripts/profile_sweep_stages.py [n_customers] [targets] [islands]
-Writes PROF_SWEEP_r{N}.json when GJ_PROF_OUT is set.
+Writes the record to the path in GJ_PROF_OUT when it is set. Prints the
+device and card lines first; roofline shares only for a device listed in
+`greyjack_tpu.utils.device_info.PEAKS`.
 """
 
 import json
@@ -51,11 +52,15 @@ def main():
     import jax
     import jax.numpy as jnp
 
+    from greyjack_tpu.compile_cache import enable_compile_cache
+    from greyjack_tpu.utils.device_info import card_line, jax_device, peaks
+
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(root, ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    device = jax_device()
+    print(f"device: {device}", flush=True)
+    card = card_line() if device["platform"] == "gpu" else None
+    print(f"card: {card}", flush=True)
+    enable_compile_cache()
 
     from greyjack_tpu.models.vrp import CotwinBuilder, generate_instance
     from greyjack_tpu.models.vrp import sweep
@@ -141,15 +146,14 @@ def main():
     results["step_moves_per_s"] = round(
         moves_per_step / (results["step"]["ms"] / 1e3))
 
-    # --- roofline attribution (VERDICT r4 item 9) --------------------------
+    # --- roofline attribution ---------------------------------------------
     # XLA's own cost model per compiled stage (flops + HBM bytes estimate),
-    # divided by the measured scan-amortized time, against v5e peaks:
-    #   bf16 MXU        197 TFLOP/s   (f32 HIGHEST one-hot matmuls run
-    #                                  ~6 bf16 passes -> /6 effective peak)
-    #   HBM             819 GB/s
-    # The binding resource per stage says how far from speed-of-light it
-    # sits and whether more perf is on the table (op-overhead-bound stages
-    # are neither — their ceiling is dispatch, fixed by fusion not FLOPs).
+    # divided by the measured scan-amortized time, against the device's
+    # published peaks (`device_info.PEAKS`; f32 outside the tensor cores,
+    # where the HIGHEST-precision one-hot matmuls run). The binding
+    # resource per stage says how far from speed-of-light it sits
+    # (op-overhead-bound stages are neither — their ceiling is dispatch,
+    # fixed by fusion not FLOPs).
     def cost_of(fn, *args):
         c = jax.jit(fn).lower(*args).compile().cost_analysis()
         if isinstance(c, (list, tuple)):
@@ -158,10 +162,7 @@ def main():
         return {"flops": float(c.get("flops", 0.0)),
                 "bytes": float(c.get("bytes accessed", 0.0))}
 
-    on_tpu = jax.default_backend() == "tpu"
-    PEAK_BF16 = 197e12
-    PEAK_F32_HIGHEST = PEAK_BF16 / 6.0
-    PEAK_BW = 819e9
+    pk = peaks()
     stage_fns = {
         "tables": (lambda cx: sweep.build_tables(cx, cfg, utils), (ctx,)),
         "score": (lambda cx: sweep.score_candidates(
@@ -184,10 +185,10 @@ def main():
             "achieved_gflop_s": round(gflops, 1),
             "achieved_gb_s": round(gbs, 1),
         }
-        if on_tpu:
-            f_frac = gflops * 1e9 / PEAK_F32_HIGHEST
-            b_frac = gbs * 1e9 / PEAK_BW
-            row["pct_flops_roofline_f32highest"] = round(100 * f_frac, 2)
+        if pk is not None:
+            f_frac = gflops * 1e9 / pk["f32_flop_per_s"]
+            b_frac = gbs * 1e9 / pk["hbm_bytes_per_s"]
+            row["pct_flops_roofline_f32"] = round(100 * f_frac, 2)
             row["pct_hbm_roofline"] = round(100 * b_frac, 2)
             row["binding"] = ("compute" if f_frac > b_frac else "memory") \
                 if max(f_frac, b_frac) > 0.2 else "op-overhead/latency"
@@ -198,8 +199,8 @@ def main():
     rec = {"note": ("scan-amortized per-step stage costs for the sweep "
                     "step; 'nil' is the harness floor per iteration. "
                     "Roofline: XLA cost-analysis flops/bytes over measured "
-                    "time vs v5e peaks (197 TF bf16 /6 for f32-HIGHEST "
-                    "matmuls, 819 GB/s HBM)."),
+                    "time vs the device's published peaks."),
+           "device": device, "card": card, "peaks": pk,
            "geometry": {"n_customers": n, "targets": t, "islands": islands,
                         "window": cfg.window},
            "stages_ms": results,

@@ -2,7 +2,7 @@
 
 The reference has no checkpointing (SURVEY.md §5 — only the solution-JSON
 round-trip, `initial_solution_variants.rs:3-8`); these tests cover the
-TPU build's addition: a killed solve resumes from the full island-state
+This build's addition: a killed solve resumes from the full island-state
 pytree + RNG key with a bit-identical continuation.
 """
 

@@ -4,7 +4,7 @@ The contract under test: for ANY delta emitted by the delta move sampler,
     score_delta(ctx, delta) == full rescore of apply_delta(base, delta)
 and applying an accepted delta to the ctx reproduces build_base_ctx of the
 patched candidate exactly. Both sides use exact integer arithmetic, so the
-comparison is bitwise — this is the TPU analog of the reference's
+comparison is bitwise — this is the array analog of the reference's
 plain-vs-incremental equivalence (`incremental_score_calculator.rs`).
 """
 

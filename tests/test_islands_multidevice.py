@@ -75,7 +75,9 @@ def test_uneven_islands_rejected():
 
 def test_graft_dryrun():
     import sys
-    sys.path.insert(0, "/root/repo")
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
     import __graft_entry__
 
     __graft_entry__.dryrun_multichip(4)

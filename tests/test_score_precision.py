@@ -1,7 +1,7 @@
 """score_precision composed with the fast paths (VERDICT r4 item 3).
 
 The reference's shipped TSP config uses `score_precision Some([3,3])`
-(`/root/reference/examples/tsp/src/main.rs:56`) and still gets the
+(`examples/tsp/src/main.rs:56`) and still gets the
 incremental path. Here the sweep / int-delta fast paths stay live under
 rounded scores by rounding at the accept boundary: candidate f64 rows are
 derived from exact integer totals (`set_delta_kernels(ctx_ints=...)`),

@@ -233,10 +233,9 @@ def test_sweep_late_acceptance_improves():
 
 def test_patch_tables_invariant():
     """`patch_tables` after an accepted move must be bit-identical to a
-    fresh `build_tables` of the updated ctx. (The state-carried variant was
-    measured SLOWER on TPU — per-step scatters serialize under the island
-    vmap — so agents rebuild per step; the patch is kept as tested
-    machinery for a future gather-free formulation.)"""
+    fresh `build_tables` of the updated ctx. (Agents rebuild the tables
+    per step; the state-carried patch is kept as tested machinery until
+    ROADMAP Speed item 4 compares the two on the card.)"""
     req = _build(n=40, d=2, k=6, tw=True, seed=9)
     utils = req._delta_utils()
     cfg = sweep.SweepConfig(req, 8, 8)
